@@ -1,6 +1,6 @@
-"""amcslam_tpu — TPU-native asynchronous multi-camera SLAM framework.
+"""amcslam_tpu — asynchronous multi-camera SLAM on an accelerator, in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of AMC-SLAM
+A from-scratch JAX/XLA rebuild of the capabilities of AMC-SLAM
 (continuous-time multi-camera SLAM with sparse-GP motion priors, built on
 ORB-SLAM3). The numerical backend — Lie-group kernels, GP interpolation,
 factor residuals/Jacobians, a g2o-semantics Levenberg-Marquardt solver with
@@ -11,7 +11,7 @@ Layout:
   factors/   residual + analytic-Jacobian factor library (SoA, vmap-first)
   solver/    LM driver, robust kernels, Schur-complement BA problems
   ransac/    batched minimal solvers (Horn Sim3, velocity RANSAC, ...)
-  parallel/  multi-chip sharding of the factor-graph linearization
+  parallel/  multi-device sharding of the factor-graph linearization
   frontend/  camera models and host-side feature plumbing
   utils/     synthetic problem generators, config, trajectory IO
 """
@@ -20,38 +20,27 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# SLAM geometry is precision-critical: TPU f32 matmuls default to single-pass
-# bf16 (~8 mantissa bits), which injects ~1e-3 absolute error into 4x4 pose
-# compositions — far above the 1e-6 chi2-parity budget. Default the whole
-# framework to true-f32 matmuls; performance-critical large matmuls in the
-# solver opt back into faster precisions explicitly where it is safe.
+# SLAM geometry is precision-critical: on the GPU, XLA may run f32 matmuls in
+# TF32 (10 mantissa bits), which injects ~1e-3 relative error into 4x4 pose
+# compositions, far above the chi2-parity budget, and breaks the exactness
+# of the one-hot gathers (solver/ba.py _onehot_gather). Default the whole
+# framework to true-f32 matmuls; a large matmul that tolerates TF32 has to
+# opt into it explicitly.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 # Persistent compilation cache: the pipeline jits one program per padded
 # problem bucket (pose solve, local BA, ...); caching them across processes
-# removes the dominant cold-start cost of a run. Opt out by setting
-# AMCSLAM_NO_COMPILE_CACHE (e.g. when the cache dir is not writable).
+# removes the dominant cold-start cost of a run. The cache lives in
+# $JAX_COMPILATION_CACHE_DIR when that is set, else in <checkout>/.jax_cache,
+# so a copied tree keeps its cache inside itself. Opt out by setting
+# AMCSLAM_NO_COMPILE_CACHE (e.g. when the checkout is not writable).
 import os as _os
 
 if not _os.environ.get("AMCSLAM_NO_COMPILE_CACHE"):
-    _cache = _os.environ.get("JAX_COMPILATION_CACHE_DIR")
-    if _cache is None:
-        # prefer a repo-local cache only for a writable source checkout
-        # (development); a pip-installed package must not write next to
-        # site-packages — use the per-user cache dir instead
-        _repo = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
-        if _os.path.isdir(_os.path.join(_repo, ".git")) and _os.access(
-            _repo, _os.W_OK
-        ):
-            _cache = _os.path.join(_repo, ".jax_cache")
-        else:
-            _cache = _os.path.join(
-                _os.environ.get(
-                    "XDG_CACHE_HOME",
-                    _os.path.join(_os.path.expanduser("~"), ".cache"),
-                ),
-                "amcslam_tpu", "jax",
-            )
+    _cache = _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache",
+    )
     try:
         _os.makedirs(_cache, exist_ok=True)
         _jax.config.update("jax_compilation_cache_dir", _cache)

@@ -1,6 +1,6 @@
 """Reprojection factors: pinhole/stereo, at-state and GP-interpolated.
 
-TPU-native rebuild of the reference's factor library (G2oTypes.cc):
+JAX rebuild of the reference's factor library (G2oTypes.cc):
   * EdgeMono / EdgeStereo            — reprojection at the keyframe state
   * EdgeMonoOnlyPose / EdgeStereoOnlyPose — fixed-landmark variants
   * EdgeMonoGP / EdgeStereoGP        — reprojection at an async-camera

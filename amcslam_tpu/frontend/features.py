@@ -55,20 +55,20 @@ def make_extractors(n: int, n_features=1200, backend: str | None = None,
     - "host" (default): frontend/orb.py — native C++ fast path when the
       extension builds, bit-identical NumPy otherwise; fanned out over a
       thread pool per camera (the reference's OpenMP axis, Frame.cc:213).
-    - "tpu": frontend/orb_tpu.py — the whole extraction pipeline as one
-      jitted XLA program over the camera batch (one device dispatch per
-      frame). The right choice when the host is a single core driving an
-      accelerator.
+    - "device": frontend/orb_device.py — the whole extraction pipeline as
+      one jitted XLA program over the camera batch (one device dispatch per
+      frame). The right choice when the host has few cores to spare.
 
     Resolution order: explicit arg > AMCSLAM_ORB_BACKEND env > "host".
     """
     import os
 
     backend = backend or os.environ.get("AMCSLAM_ORB_BACKEND", "host")
-    if backend == "tpu":
-        from .orb_tpu import ORBExtractorTPU
+    if backend == "device":
+        from .orb_device import ORBExtractorDevice
 
-        return [ORBExtractorTPU(n_features=n_features, **kw) for _ in range(n)]
+        return [ORBExtractorDevice(n_features=n_features, **kw)
+                for _ in range(n)]
     if backend != "host":
         raise ValueError(f"unknown ORB backend {backend!r}")
     return [ORBExtractor(n_features=n_features, **kw) for _ in range(n)]
@@ -113,7 +113,7 @@ def build_frame(
     When every extractor is the on-device backend with a uniform feature
     budget and all images share one shape, the whole rig (async cameras +
     stereo left + stereo right) extracts in a SINGLE batched device
-    dispatch — the TPU replacement for the reference's OpenMP fan-out."""
+    dispatch, in place of the reference's OpenMP fan-out."""
     all_imgs = list(images) + ([right_image] if right_image is not None else [])
     batched = (
         hasattr(extractors[-1], "extract_batch")

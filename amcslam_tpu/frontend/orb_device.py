@@ -1,8 +1,7 @@
-"""On-device (TPU) ORB extraction — the accelerator path of the front-end.
+"""On-device ORB extraction — the accelerator path of the front-end.
 
-The host machine driving a TPU is often a single core (this box: nproc=1),
-so the reference's OpenMP fan-out (Frame.cc:213) has no host parallelism to
-exploit; the TPU is the only real compute. This module runs the WHOLE
+The host-side extractor fans out over cameras with a thread pool (the
+reference's OpenMP axis, Frame.cc:213); this module instead runs the WHOLE
 extraction pipeline of frontend/orb.py as one jitted XLA program over a
 batch of images: pyramid resize, FAST-9/16 via the same 65536-entry
 circular-run LUT, raster-order 3x3 NMS, the per-cell ini/min threshold
@@ -87,8 +86,8 @@ def _run9(m):
     """Branchless circular run-of-9 test over a 16-bit mask (int32 lanes).
 
     Equivalent to _ARC_LUT[m] (orb.py:51) but with shift-AND doubling
-    instead of a 65536-entry gather — gathers serialize on the TPU VPU
-    while shifts/ANDs run at full lane rate."""
+    instead of a 65536-entry gather: shifts and ANDs fuse into the
+    elementwise program, a table lookup per pixel does not."""
     m32 = m | (m << 16)           # duplicate: circular runs become linear
     r = m32 & (m32 >> 1)          # run >= 2 starting at each bit
     r = r & (r >> 2)              # run >= 4
@@ -225,9 +224,8 @@ def _extract_level(img, brief, ini_th, min_th, budget):
     """One pyramid level -> (xy (B,2) f32 level-px, score, angle, desc
     (B,32) int32-as-u8, valid).
 
-    Orientation and BRIEF avoid per-point gathers (slow on the TPU VPU):
-    a 41x41 window around each keypoint is extracted with one-hot row/col
-    matmuls (MXU), then orientation is a dense dot with fixed moment
+    Orientation and BRIEF avoid per-point gathers: a 41x41 window around
+    each keypoint is extracted with one-hot row/col matmuls, then orientation is a dense dot with fixed moment
     kernels and BRIEF samples are one-hot dots inside the window. Border
     clamping matches the gather version bit-exactly because the window is
     built from clipped global indices.
@@ -285,7 +283,7 @@ def _extract_level(img, brief, ini_th, min_th, budget):
     return xy, sc, ang, desc, valid
 
 
-def build_orb_tpu(H, W, n_features=1200, scale_factor=1.2, n_levels=8,
+def build_orb_device(H, W, n_features=1200, scale_factor=1.2, n_levels=8,
                   ini_th=20, min_th=7):
     """Compile-once extractor for images of a fixed size. Returns a jitted
     function (B,H,W) uint8 -> dict of per-keypoint arrays, K = n_features
@@ -319,7 +317,7 @@ def build_orb_tpu(H, W, n_features=1200, scale_factor=1.2, n_levels=8,
     return jax.jit(jax.vmap(one_image))
 
 
-class ORBExtractorTPU:
+class ORBExtractorDevice:
     """Drop-in .extract() with the on-device pipeline; one compiled program
     per (H, W, n_features) combination (cached on the instance)."""
 
@@ -338,7 +336,7 @@ class ORBExtractorTPU:
     def _fn(self, H, W):
         key = (H, W, self.n_features)
         if key not in self._fns:
-            self._fns[key] = build_orb_tpu(
+            self._fns[key] = build_orb_device(
                 H, W, self.n_features, self.scale_factor, self.n_levels,
                 self.ini_th, self.min_th,
             )
@@ -364,8 +362,7 @@ class ORBExtractorTPU:
                 + 0.299 * images[..., 2], 0, 255
             ).astype(np.uint8)
         B, H, W = images.shape
-        # one batched device->host fetch: separate np.asarray calls each pay
-        # a full transport round trip on remote-tunnel backends
+        # one batched device->host fetch instead of one transfer per array
         out = jax.device_get(self._fn(H, W)(jnp.asarray(images)))
         xy = out["xy"]
         octv = out["octave"]

@@ -9,6 +9,7 @@ from __future__ import annotations
 import hashlib
 import importlib.util
 import os
+import platform
 import subprocess
 import sysconfig
 
@@ -17,19 +18,30 @@ import numpy as np
 _mods: dict = {}
 
 
+def _host_cpu_id() -> bytes:
+    """The host CPU's model and feature flags (what -march=native targets)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = [ln for ln in f if ln.startswith((b"model name", b"flags"))]
+        return b"".join(sorted(set(lines)))
+    except OSError:
+        return platform.machine().encode()
+
+
 def _build_and_load(name: str = "graph_builder"):
     """Compile + import one of the extension sources in this directory.
-    Cache keyed on source hash — the artifact name embeds it, plus the
+    Cache keyed on a hash of the source and the host CPU, and on the
     Python/ABI/platform tag via EXT_SUFFIX, so a binary built with
     -march=native on another host or Python is never reused (it would
-    SIGILL or fail to import). Artifacts are gitignored."""
+    SIGILL or fail to import), even in a copied tree. Artifacts are
+    gitignored."""
     if name in _mods:
         return _mods[name]
     _mods[name] = None
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(here, f"{name}.cpp")
     with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:12]
+        tag = hashlib.sha256(f.read() + _host_cpu_id()).hexdigest()[:12]
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
     out = os.path.join(here, f"_{name}_{tag}" + suffix)
     if not os.path.exists(out):

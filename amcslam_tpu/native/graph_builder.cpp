@@ -1,7 +1,7 @@
 // Native SoA graph builder (the C++ runtime component of the framework).
 //
 // The reference's problem construction is C++ loops over observations
-// (Optimizer.cc:86-304, :857-1214). The TPU rebuild keeps construction on
+// (Optimizer.cc:86-304, :857-1214). The JAX rebuild keeps construction on
 // the host but moves the per-observation hot loops out of Python: given the
 // map in SoA form (concatenated keyframe match tables + landmark registry),
 // emit the padded edge arrays consumed by the jitted solvers. This is a

@@ -1,6 +1,6 @@
 """Sparse Gaussian-process motion prior on SE(3) x R^6 (WNOA / const-velocity).
 
-TPU-native rebuild of the reference's `src/GaussianProcess.cc` +
+JAX rebuild of the reference's `src/GaussianProcess.cc` +
 `include/GaussianProcess.h`: the process-noise kernel ``Qi(dt)`` and its
 closed-form inverse, the constant-velocity transition ``Phi``, and GP pose
 interpolation ``query_pose`` between two (pose, world-twist) states — the
@@ -76,7 +76,7 @@ def interp_coeffs(t1, t2, t):
 
     This closed form is exact (verified against the matrix products in f64)
     and, unlike the product chain that mixes O(dt^3) with O(1/dt^3) scales,
-    is well conditioned in float32 — required for TPU execution.
+    is well conditioned in float32, the production dtype on device.
     """
     dt = t2 - t1
     s = (t - t1) / dt

@@ -1,6 +1,6 @@
 """Batched SO(3)/SE(3) Lie-group kernels (pure JAX, vmap-first).
 
-This is the L1 geometry substrate of the framework: the TPU-native
+This is the L1 geometry substrate of the framework: the batched JAX
 equivalent of the reference's Sophus usage plus `src/Pose3utils.cc`
 (SE(3) left/right Jacobians with Barfoot's closed-form Q coupling block,
 `se3Adj`, `CircleDot`) and the SO(3) helpers in `src/G2oTypes.cc:513-597`.
@@ -190,8 +190,7 @@ def se3_matrix(R: jax.Array, t: jax.Array) -> jax.Array:
     """Assemble 4x4 homogeneous transform from rotation + translation.
 
     Built with concatenation, never `.at[].set` — vmapped index-updates
-    lower to per-element scatters, which cost ~2.5 ms per 25k-edge batch on
-    TPU (profiled); concatenate is a plain tiled copy.
+    lower to per-element scatters; concatenate is a plain copy.
     """
     top = jnp.concatenate([R, t[:, None]], axis=1)
     bottom = jnp.concatenate(

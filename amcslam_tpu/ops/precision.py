@@ -1,11 +1,12 @@
 """Matmul-precision control for geometry kernels.
 
-TPU MXU f32 matmuls default to fast bf16 passes (~8 significant bits), which
-is catastrophic for Lie-group and GP-kernel algebra: Qi @ Phi^T @ QiInv mixes
-O(dt^3) and O(1/dt^3) magnitudes and loses ~1e-3 absolute accuracy in the
+On the GPU, XLA may run f32 matmuls in TF32 (10 mantissa bits), which is
+catastrophic for Lie-group and GP-kernel algebra: Qi @ Phi^T @ QiInv mixes
+O(dt^3) and O(1/dt^3) magnitudes and loses ~1e-3 accuracy in the
 interpolated pose. All small geometry matmuls therefore run at HIGHEST
-precision — they are tiny (<= 12x12) so MXU throughput is irrelevant, and the
-solver chooses precision explicitly for its large Schur-complement matmuls.
+precision — they are tiny (<= 12x12) so tensor-core throughput is
+irrelevant, and the one-hot gathers (solver/ba.py _onehot_gather) are exact
+only at HIGHEST.
 """
 
 from __future__ import annotations
@@ -30,10 +31,10 @@ def smm(a, b):
     """Small-matrix multiply as broadcast multiply + sum.
 
     For the fixed tiny operands of Lie/GP/factor chains (<= 12x12), a
-    dot_general at HIGHEST precision becomes a separate multi-pass MXU op
-    that blocks XLA elementwise fusion; the mul-sum form is exact f32, runs
-    on the VPU, and fuses with its neighbors. Handles matrix @ matrix and
-    matrix @ vector with arbitrary broadcast batch dims.
+    dot_general becomes a separate library call that blocks XLA elementwise
+    fusion; the mul-sum form is exact f32 and fuses with its neighbors.
+    Handles matrix @ matrix and matrix @ vector with arbitrary broadcast
+    batch dims.
     """
     import jax.numpy as jnp
 
@@ -45,9 +46,8 @@ def smm(a, b):
 
 def fdtype():
     """Canonical max-precision float dtype for host->device problem uploads:
-    float64 when x64 is enabled (CPU test mesh), else float32 (TPU has no
-    native f64 — requesting it would only emit a truncation warning per
-    call site)."""
+    float64 when x64 is enabled (CPU test mesh), else float32 (requesting
+    f64 without x64 would only emit a truncation warning per call site)."""
     import jax.numpy as jnp
 
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32

@@ -1,7 +1,7 @@
 """Multi-chip local BA: landmark-axis sharding over a device mesh.
 
-The reference is single-process shared-memory (SURVEY.md §2.13); the TPU-
-native scaling axis for bundle adjustment is the landmark/observation
+The reference is single-process shared-memory (SURVEY.md §2.13); the
+device scaling axis for bundle adjustment is the landmark/observation
 dimension of the Schur complement. Decomposition:
 
   * pose-vel states, extrinsics, and the dense reduced system: REPLICATED
@@ -12,14 +12,14 @@ Each device linearizes its own edge shard (reusing the single-chip
 `make_ba_problem` closures on the local block), then:
 
   Hpp, bp           -> psum over "l"  (pose-level edges live on shard 0)
-  Hschur correction  = psum_l( W_l Hll_l^-1 W_l^T )   — ICI all-reduce of a
+  Hschur correction  = psum_l( W_l Hll_l^-1 W_l^T )   — one all-reduce of a
                        (P,P) matrix, P = 12K + 6C (tiny vs the per-shard
                        contraction it replaces)
   reduced solve      -> replicated dense Cholesky
   dx_landmarks       -> local back-substitution, no communication
 
 This gives strong scaling in #landmarks with one (P,P)+(P,) all-reduce per
-trial, which rides ICI. Host-side `shard_ba_data` reorders/pads the SoA edge
+trial (NCCL over NVLink on GPUs). Host-side `shard_ba_data` reorders/pads the SoA edge
 arrays into contiguous equal shard blocks with shard-local landmark ids.
 """
 

@@ -12,7 +12,7 @@ decomposition is:
   * edges (pairs, measurements, residuals, Jacobians): SHARDED over "e"
 
 Per CG iteration each device computes its local J_e^T(J_e x) contribution
-and one psum of an (N,7) vector rides ICI — ~280 KB at 10k KFs, far below
+and one psum of an (N,7) vector crosses the interconnect — ~280 KB at 10k KFs, far below
 the per-device matvec it amortizes. The LM trial loop and PCG while_loop run
 replicated (identical scalars on every device), so control flow needs no
 host round-trips.

@@ -14,7 +14,6 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
-import yaml
 
 from .rig import Rig
 from .tracking import TrackingConfig
@@ -42,6 +41,8 @@ def load_camera_json(path: str):
 
 
 def load_config(yaml_path: str) -> SystemConfig:
+    import yaml
+
     with open(yaml_path) as f:
         text = f.read()
     # tolerate OpenCV FileStorage headers ("%YAML:1.0")

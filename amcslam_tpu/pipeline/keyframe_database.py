@@ -1,7 +1,7 @@
 """Place-recognition database (rebuild of src/KeyFrameDatabase.cc + DBoW2).
 
 The reference uses a DBoW2 `TemplatedVocabulary<FORB>` inverted file. The
-TPU-native equivalent keeps the same retrieval contract
+batched equivalent here keeps the same retrieval contract
 (`add/erase/DetectNBestCandidates` with covisibility-group scoring,
 KeyFrameDatabase.cc:604, and the wider 0.75-bar relocalization scoring of
 :733) over a vocabulary-free binary signature: each keyframe is summarized

@@ -1,11 +1,11 @@
 """Feature matching (rebuild of src/ORBmatcher.cc, multi-camera variants).
 
 Hamming distances between 256-bit binary descriptors evaluate on-device as
-one batched popcount matmul-like contraction — the TPU-native replacement
+one batched popcount matmul-like contraction — the batched replacement
 for the reference's per-candidate `DescriptorDistance` bit-hack loops
 (ORBmatcher.cc:1620ff). Search windows (grid cells in the reference) become
 full distance matrices with masked admissibility: at SLAM feature counts
-(<= a few thousand per camera) an (N,M) popcount table is cheap on the VPU
+(<= a few thousand per camera) an (N,M) popcount table is cheap on device
 and removes all host-side branching.
 
 Provided searches (multi-camera aware, SURVEY.md §2.7):
@@ -44,7 +44,7 @@ def hamming_table(d1: jax.Array, d2: jax.Array) -> jax.Array:
     """(N,32)x(M,32) uint8 -> (N,M) int32 Hamming distances.
 
     popcount(a XOR b) via bit-plane dot products: with b1, b2 in {0,1},
-    sum(b1 XOR b2) = sum(b1) + sum(b2) - 2 b1.b2 — one MXU matmul.
+    sum(b1 XOR b2) = sum(b1) + sum(b2) - 2 b1.b2 — one matmul.
     """
     b1 = _bits(d1).astype(jnp.float32)
     b2 = _bits(d2).astype(jnp.float32)

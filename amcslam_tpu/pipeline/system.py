@@ -5,7 +5,7 @@ Threading: the reference spawns LocalMapping / LoopClosing / Viewer threads
 (System.cc:165-206). Here the default is a deterministic sequential schedule
 (track -> drain mapper -> drain loop closer), with `threaded=True` running
 mapper+closer in a background worker — the heavy math is asynchronous on the
-TPU either way (JAX dispatch), so host threads only matter for overlapping
+device either way (JAX dispatch), so host threads only matter for overlapping
 Python bookkeeping.
 """
 
@@ -69,12 +69,15 @@ class System:
 
             preset_shape_buckets()
         # Long CPU-backend runs accumulate one compiled executable per
-        # program shape; each holds several mmap regions and the default
-        # vm.max_map_count kills multi-hundred-compile runs ("Cannot
-        # allocate memory" from LLVM with free RAM).  Dropping the live
-        # executables every N keyframes bounds the map count; the
-        # persistent compilation cache makes the re-loads cheap.  TPU
-        # backends don't JIT host code and never need this (0 = off).
+        # program shape; each holds several mmap regions of JIT-compiled
+        # host code, and the default vm.max_map_count kills
+        # multi-hundred-compile runs ("Cannot allocate memory" from LLVM
+        # with free RAM).  Dropping the live executables every N keyframes
+        # bounds the map count; the persistent compilation cache makes the
+        # re-loads cheap.  GPU executables keep their code on the device:
+        # the AMV-rig and loop-course runs of chip_smoke.py grew
+        # /proc/self/maps from 1201 to 1256 lines on an H100, so only the
+        # CPU backend clears by default (0 = off).
         self.clear_caches_every = int(
             _os.environ.get("AMCSLAM_CLEAR_CACHES_EVERY", "0") or 0
         )

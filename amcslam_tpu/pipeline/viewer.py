@@ -5,7 +5,7 @@ The reference renders with Pangolin; it is disabled in the AMV example
 producing the same artifacts — map points + keyframe frusta + covisibility
 graph + trajectory (MapDrawer.cc:135,181,401) and a multi-camera keypoint
 mosaic (FrameDrawer.cc:384) — to files or figure objects, suitable for
-offline inspection of TPU runs.
+offline inspection of device runs.
 """
 
 from __future__ import annotations

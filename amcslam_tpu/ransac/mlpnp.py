@@ -8,7 +8,7 @@ refinement (`computePose` MLPnPsolver.cpp:356, `mlpnp_gn` :694) inside a
 RANSAC loop (`iterate` :100). Dormant in the fork (Relocalization is a stub,
 Tracking.cc:1431-1450) but required for relocalization parity.
 
-TPU design: hypotheses are a vmapped axis; the DLT is a batched (2n x 12)
+Device design: hypotheses are a vmapped axis; the DLT is a batched (2n x 12)
 SVD; the GN refinement is a fixed-iteration manifold Gauss-Newton on SE(3);
 inlier counting is one batched reprojection.
 """

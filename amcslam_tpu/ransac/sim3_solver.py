@@ -3,7 +3,7 @@
 The reference iterates serial RANSAC hypotheses (Sim3Solver::iterate,
 Sim3Solver.cc:181-342), each: Horn's closed-form similarity from 3 point
 pairs (ComputeSim3, :343-464) + reprojection inlier check through each
-keyframe's multi-camera rig (CheckInliers, :466-500). TPU-native: ALL
+keyframe's multi-camera rig (CheckInliers, :466-500). Here ALL
 hypotheses evaluate in parallel — one vmapped Horn solve (batched 4x4
 symmetric eigendecomposition on device) and one batched inlier count.
 """

@@ -8,7 +8,7 @@ matches. Dormant in the reference pipeline (monocular init commented out,
 Tracking.cc:1506-1569) but named in BASELINE.json; reachable via
 `GeometricCamera::ReconstructWithTwoViews` parity.
 
-TPU design: the reference's serial RANSAC becomes one vmapped program — all
+Device design: the reference's serial RANSAC becomes one vmapped program — all
 hypotheses, all models, and all 12 candidate motions score simultaneously;
 triangulation is a batched 4x4 SVD.
 """

@@ -9,7 +9,7 @@ invLevelSigma2), residual model
     err = obs - pi_cam( (T_last exp(v dt) Tbc[cam])^-1 Xw ),  dt = t_obs - t_last
 
 then count inliers over ALL matches with ||err|| <= threshold (default 3 px
-from YAML `Ransac.threshold`). TPU-native: the reference's serial hypothesis
+from YAML `Ransac.threshold`). Here the reference's serial hypothesis
 loop becomes one vmapped program — every hypothesis optimizes and scores in
 parallel on device.
 """

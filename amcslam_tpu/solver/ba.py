@@ -1,6 +1,6 @@
 """Windowed local GP bundle adjustment with landmark Schur complement.
 
-TPU-native rebuild of `Optimizer::LocalGPBA` (Optimizer.cc:713-1432) and the
+JAX rebuild of `Optimizer::LocalGPBA` (Optimizer.cc:713-1432) and the
 g2o BlockSolver Schur machinery (Thirdparty/g2o/g2o/core/block_solver.h:131-172):
 
   graph = { temporal window of pose-vel KFs (prev KF + covisible KFs fixed),
@@ -12,12 +12,12 @@ g2o BlockSolver Schur machinery (Thirdparty/g2o/g2o/core/block_solver.h:131-172)
             GP-interpolated stereo reprojections (non-KF stereo obs),
             stereo-camera mono/stereo reprojections at KF timestamps }
 
-TPU mapping: all residuals/Jacobians evaluate as one vmapped batch per edge
+Device mapping: all residuals/Jacobians evaluate as one vmapped batch per edge
 type; the block Hessian is assembled with segment-sums (pose-pair blocks are
 deduplicated by structure id before scattering — there are only O(K*C)
 distinct column sets) plus one scatter-add for the landmark coupling W; the
-Schur complement Hpp - W Hll^-1 W^T is two large dense contractions on the
-MXU; the reduced system solves with dense Cholesky. The trust-region loop is
+Schur complement Hpp - W Hll^-1 W^T is two large dense contractions; the
+reduced system solves with dense Cholesky. The trust-region loop is
 the shared g2o-exact LM driver (solver/lm.py).
 
 Dynamic outlier sets are masks; dynamic graph topology is padding — shapes
@@ -99,7 +99,7 @@ class LocalBAData(NamedTuple):
     st_close: jax.Array       # (Es,) bool
     # --- optional landmark-major gather tables (make_landmark_tables):
     # scatter-free Wt/Hll/bl assembly. When None, linearize falls back to
-    # segment-sums (slower on TPU; used by direct LocalBAData constructions).
+    # segment-sums (used by direct LocalBAData constructions).
     lm_blk: jax.Array | None = None        # (L,D) int32 into the flat block
                                            # array [mono-i|mono-j|mono-ext|
                                            # sg-i|sg-j|st]
@@ -153,14 +153,14 @@ def _inv3x3(A):
 
 
 def _onehot_gather(idx, n: int, table):
-    """Row-gather from a small table as a one-hot MXU contraction.
+    """Row-gather from a small table as a one-hot contraction.
 
-    TPU dynamic row gathers move ~1 element/cycle; for per-edge gathers from
-    small tables (poses, interp packs, extrinsics: n <= a few hundred rows)
-    a (E, n) one-hot matmul is ~2.6x faster (measured on v5e at E=34k, n=50)
-    and exact: the 0/1 one-hot rides the package-global HIGHEST matmul
-    precision, so each output row is the selected table row bit-for-bit.
-    Callers keep plain indexing for large tables (landmarks).
+    For per-edge gathers from small tables (poses, interp packs, extrinsics:
+    n <= a few hundred rows) the gather is an (E, n) one-hot matmul. It is
+    exact only under the package-global HIGHEST matmul precision: the 0/1
+    one-hot then selects each table row bit-for-bit, where TF32 would round
+    the table to ~10 mantissa bits. Callers keep plain indexing for large
+    tables (landmarks).
     """
     oh = (idx[:, None] == jnp.arange(n)).astype(table.dtype)
     flat = table.reshape(n, -1)
@@ -189,24 +189,18 @@ def _interp_packs(data: LocalBAData, state: BAState, sid_cols, it_sid, it_t):
     # dump combo (structure 0) has i == j -> dt = 0; keep its pack finite
     # (outputs of the edges that gather it are where-masked anyway)
     j_u = jnp.where(j_u == i_u, jnp.minimum(i_u + 1, data.n_poses - 1), j_u)
-    from ..ops import pallas_chain
-
-    if state.T.dtype == jnp.float32 and pallas_chain.available():
-        # one fused Mosaic kernel instead of the ~200-launch op chain
-        return pallas_chain.gp_interp_packs(
-            state.T[i_u], state.v[i_u], state.T[j_u], state.v[j_u],
+    # named so a profiler trace can attribute the chain's kernels
+    with jax.named_scope("gp_interp_packs"):
+        packs = jax.vmap(
+            lambda i, j: reprojection.gp_pair_pack(
+                state.T[i], state.v[i], state.T[j], state.v[j]
+            )
+        )(sid_cols[:, 0] // 12, sid_cols[:, 12] // 12)
+        pack_u = jax.tree.map(lambda a: a[it_sid], packs)
+        return jax.vmap(reprojection.gp_interp_pack)(
+            pack_u, state.T[i_u], state.v[i_u],
             data.times[i_u], data.times[j_u], it_t,
         )
-    packs = jax.vmap(
-        lambda i, j: reprojection.gp_pair_pack(
-            state.T[i], state.v[i], state.T[j], state.v[j]
-        )
-    )(sid_cols[:, 0] // 12, sid_cols[:, 12] // 12)
-    pack_u = jax.tree.map(lambda a: a[it_sid], packs)
-    return jax.vmap(reprojection.gp_interp_pack)(
-        pack_u, state.T[i_u], state.v[i_u],
-        data.times[i_u], data.times[j_u], it_t,
-    )
 
 
 def _mono_cam_tables(data: LocalBAData, state: BAState):
@@ -519,8 +513,8 @@ def make_ba_problem(
         L = state.X.shape[0]
         # --- unified pose-Hessian contributions: every edge family reduces
         # to (segments, 30x30 block, 30 column indices) triples; the final
-        # Hpp/bp assemble with two dense one-hot contractions on the MXU
-        # instead of scatter-adds (profiled ~10x cheaper on TPU).
+        # Hpp/bp assemble with two dense one-hot contractions instead of
+        # scatter-adds.
         seg_H, seg_b, seg_cols = [], [], []
         # --- landmark-coupling blocks, in the exact order of
         # make_landmark_tables: [mono-i | mono-j | mono-ext | sg-i | sg-j | st]
@@ -556,7 +550,7 @@ def make_ba_problem(
             seg_cols.append(cols.astype(jnp.int32))
 
         def seg_reduce(Hblk, bblk, sid, n_sid):
-            """Segment reduction as a one-hot matmul (MXU, not scatter)."""
+            """Segment reduction as a one-hot matmul (not a scatter)."""
             E, w_ = bblk.shape
             onehot = (sid[None, :] == jnp.arange(n_sid)[:, None]).astype(dtype)
             Hs = jnp.einsum("se,eab->sab", onehot, Hblk)
@@ -823,8 +817,8 @@ def make_ba_problem(
         eye3 = jnp.eye(3, dtype=dtype)
         Hll_inv = _inv3x3(Hll + lam * eye3[None])
         Y = jnp.einsum("lab,lbp->lap", Hll_inv, Wt)  # (L,3,P)
-        # diag via eye-multiply (jnp.diag lowers to a scatter on TPU);
-        # inactive/phantom columns get identity rows
+        # diag via eye-multiply (no scatter); inactive/phantom columns get
+        # identity rows
         Hs = (
             Hpp
             + jnp.eye(P, dtype=dtype) * (lam * act_vec + (1.0 - act_vec))[None, :]
@@ -850,10 +844,8 @@ def make_ba_problem(
 
 
 def _sorted_segment(idx):
-    """Static pre-sort for a segment-id array. TPU scatters move only a few
-    elements per cycle; `segment_sum` over unsorted ids at (50k,12) measures
-    0.145 ms on v5e while the sorted form runs 0.036 ms and the permutation
-    gather it needs costs ~0.03 ms — net ~2.3x per scatter. The ids are
+    """Static pre-sort for a segment-id array, so `segment_sum` runs with
+    `indices_are_sorted=True` after one permutation gather. The ids are
     problem statics, so the permutation is computed once on the host.
     Returns seg(vals, n) closing over (perm, sorted_ids); falls back to the
     plain unsorted scatter if the ids are a tracer (problem built under
@@ -1479,7 +1471,7 @@ def global_ba(data: LocalBAData, state: BAState, num_iterations: int = 10):
 
 # ----------------------------------------------------------------------
 # Interruptible drivers: host-segmented LM with between-segment abort
-# checks. This is the TPU-native counterpart of g2o's setForceStopFlag —
+# checks. This is the device-side counterpart of g2o's setForceStopFlag —
 # the reference passes &mbAbortBA into LocalGPBA (Optimizer.cc:79-80 /
 # LocalMapping.cc:131) and &mbStopGBA into the detached global BA
 # (Optimizer.cc:1254-1255 via LoopClosing.cc:1222), checked once per LM
@@ -1759,8 +1751,7 @@ def make_landmark_tables(mg_lm, mg_pair, mg_cam, mg_valid,
                          pad_d: "int | None" = None,
                          pad_de: "int | None" = None):
     """Host-side landmark-major gather tables for scatter-free Wt/Hll/bl
-    assembly (profiled: TPU scatter-adds cost ~10 ms/iter at 50 KF / 5k pts;
-    gathers + one batched matmul replace them).
+    assembly (gathers + one batched matmul replace the scatter-adds).
 
     Block array layout (must match linearize): the per-edge landmark-coupling
     (3,12) blocks concatenate as [mono-i | mono-j | mono-ext | sg-i | sg-j |

@@ -1,6 +1,6 @@
 """Per-frame pose-velocity optimization (the tracking-time solver).
 
-TPU-native rebuild of `Optimizer::PoseGPOptimizationFromeLastFrame`
+JAX rebuild of `Optimizer::PoseGPOptimizationFromeLastFrame`
 (Optimizer.cc:369-686): two 12-dof pose-velocity vertices (previous frame —
 optionally fixed — and current frame), connected by
 
@@ -96,8 +96,8 @@ def _mono_gp_all(data: PoseGPData, state: PoseState):
 
         U = data.it_t.shape[0]
         C = data.Tbc.shape[0]
-        # one-hot MXU gathers: TPU dynamic row gathers from these small
-        # tables cost ~1 element/cycle per edge (see ba._onehot_gather)
+        # one-hot gathers from these small tables (see ba._onehot_gather;
+        # exact only under HIGHEST matmul precision)
         ip_e = jax.tree.map(lambda a: _onehot_gather(data.mg_it, U, a), ips)
         Tbc_e = _onehot_gather(data.mg_cam, C, data.Tbc)
         K_e = _onehot_gather(data.mg_cam, C, data.K)

@@ -302,7 +302,7 @@ def make_essential_graph_problem_pcg(
 ) -> LMProblem:
     """Matrix-free essential graph for at-scale pose graphs (the rebuild of
     LinearSolverEigen's sparse Cholesky, Optimizer.cc:1442-1444, as a
-    TPU-native iterative solver): the 7Nx7N normal matrix is never formed —
+    batched iterative solver): the 7Nx7N normal matrix is never formed —
     H.x products evaluate edge-wise as J_e^T (J_e x[cols_e]) with two
     segment-sums, preconditioned by the inverted per-vertex 7x7 block
     diagonal (block-Jacobi). Memory is O(E) instead of O(N^2); a 5k-KF graph

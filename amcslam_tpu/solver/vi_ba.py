@@ -99,8 +99,8 @@ def make_vi_ba_problem(data: VIBAData) -> LMProblem:
     """VI-BA with landmark Schur complement, scatter-free. Parameter layout
     per KF: [dphi,dp,dv,dbg,dba] (15); landmarks marginalized (3 each).
 
-    Same TPU mapping as solver/ba.py: per-edge Hessian blocks reduce into
-    per-structure segments with one-hot matmuls (MXU) instead of
+    Same device mapping as solver/ba.py: per-edge Hessian blocks reduce
+    into per-structure segments with one-hot matmuls instead of
     scatter-adds; reprojection edges all share the per-keyframe structure
     (their 9-dof pose block), IMU/bias-walk factors are one segment each;
     the landmark system (Hll, bl, W) Schur-eliminates with batched 3x3
@@ -162,7 +162,7 @@ def make_vi_ba_problem(data: VIBAData) -> LMProblem:
         wgt = jnp.where(act_obs, data.w * rho1, 0.0)
         Jp9 = Jp[:, :, :9]  # v/bg/ba columns of reprojection are zero
         JpW = Jp9 * wgt[:, None, None]
-        # per-keyframe 9x9 pose blocks: one-hot segment reduction (MXU)
+        # per-keyframe 9x9 pose blocks: one-hot segment reduction
         Hblk = jnp.sum(JpW[:, :, :, None] * Jp9[:, :, None, :], axis=1)  # (E,9,9)
         bblk = -jnp.sum(JpW * r[:, :, None], axis=1)  # (E,9)
         onehot = (data.obs_kf[None, :] == jnp.arange(K)[:, None]).astype(dtype)

@@ -5,7 +5,8 @@ This is the whole stack the way a user runs it (multicam_amv.cc semantics:
 images in, trajectory out) — nothing is fed synthetic keypoints or oracle
 descriptors; every match comes from rBRIEF on rendered pixels.
 
-Usage: python examples/e2e_rendered.py [--frames N] [--plot out.png]
+Usage: python examples/e2e_rendered.py [--frames N] [--size 960x600]
+                                       [--plot out.png]
 Prints per-stage timing and the final ATE RMSE vs the ground-truth
 trajectory.
 """
@@ -27,8 +28,24 @@ from amcslam_tpu.pipeline.system import System
 from amcslam_tpu.pipeline.tracking import TrackingConfig
 from amcslam_tpu.utils.io import ate_rmse
 
-W, H = 640, 480
-K4 = np.array([400.0, 400.0, 320.0, 240.0])
+SIZE = (640, 480)  # default (width, height) of every rendered camera
+
+
+def camera_k4(size=SIZE) -> np.ndarray:
+    """Pinhole (fx, fy, cx, cy) for a (width, height) image: square pixels,
+    principal point at the centre, and the same horizontal field of view
+    (77 deg) at every width (fx = 400 at 640 px)."""
+    w, h = size
+    f = 400.0 * w / 640.0
+    return np.array([f, f, w / 2.0, h / 2.0])
+
+
+def _pinhole_rays(size=SIZE) -> np.ndarray:
+    """(H, W, 3) unit-depth rays of the camera_k4 pinhole."""
+    w, h = size
+    fx, fy, cx, cy = camera_k4(size)
+    u, v = np.meshgrid(np.arange(w), np.arange(h))
+    return np.stack([(u - cx) / fx, (v - cy) / fy, np.ones((h, w))], -1)
 
 
 def make_world(seed=0, half=4.0, ceiling=4.0, span=12.0):
@@ -57,18 +74,16 @@ def make_world(seed=0, half=4.0, ceiling=4.0, span=12.0):
     ]
 
 
-def render(Twc: np.ndarray, planes, ray_grid: np.ndarray | None = None) -> np.ndarray:
+def render(Twc: np.ndarray, planes, ray_grid: np.ndarray | None = None,
+           size=SIZE) -> np.ndarray:
     """Ray-cast one view of the textured box (nearest-texel). Default is
-    the pinhole K4 camera; pass `ray_grid` (H,W,3 unit-depth rays, e.g.
-    cameras.kb8_ray_grid) to render through another camera model."""
-    if ray_grid is not None:
-        d_cam = ray_grid.reshape(-1, 3).T
-    else:
-        fx, fy, cx, cy = K4
-        u, v = np.meshgrid(np.arange(W), np.arange(H))
-        d_cam = np.stack(
-            [(u.ravel() - cx) / fx, (v.ravel() - cy) / fy, np.ones(W * H)], 0
-        )
+    the camera_k4 pinhole at `size`; pass `ray_grid` (H,W,3 unit-depth
+    rays, e.g. cameras.kb8_ray_grid) to render through another camera
+    model."""
+    if ray_grid is None:
+        ray_grid = _pinhole_rays(size)
+    H, W = ray_grid.shape[:2]
+    d_cam = ray_grid.reshape(-1, 3).T
     Rwc, t = Twc[:3, :3], Twc[:3, 3]
     d = Rwc @ d_cam  # (3, N)
     best_t = np.full(W * H, np.inf)
@@ -92,12 +107,13 @@ def render(Twc: np.ndarray, planes, ray_grid: np.ndarray | None = None) -> np.nd
     return np.clip(val, 0, 255).astype(np.uint8).reshape(H, W)
 
 
-def make_device_renderer(planes, ray_grids: np.ndarray | None = None):
+def make_device_renderer(planes, ray_grids: np.ndarray | None = None,
+                         size=SIZE):
     """The ray-caster as one jitted XLA program: all cameras' views render
     in a single device dispatch (same plane-intersection + nearest-texel
-    semantics as `render`). On a 1-core host driving a TPU this moves the
-    only remaining CPU-bound stage of the demo loop onto the chip, which is
-    what makes multi-hundred-meter full-stack runs practical."""
+    semantics as `render`). This moves the demo loop's one CPU-bound stage
+    that is not part of the pipeline onto the device, which is what makes
+    multi-hundred-meter full-stack runs practical."""
     import jax
     import jax.numpy as jnp
 
@@ -107,12 +123,7 @@ def make_device_renderer(planes, ray_grids: np.ndarray | None = None):
     e2 = jnp.asarray(np.stack([p[3] for p in planes]), jnp.float32)
     tex = jnp.asarray(np.stack([p[4] for p in planes]), jnp.float32)
     scale = jnp.asarray(np.array([p[5] for p in planes]), jnp.float32)
-    fx, fy, cx, cy = K4
-
-    u, v = np.meshgrid(np.arange(W), np.arange(H))
-    d_cam = np.stack(
-        [(u - cx) / fx, (v - cy) / fy, np.ones((H, W))], axis=-1
-    ).astype(np.float32)  # (H, W, 3)
+    d_cam = _pinhole_rays(size).astype(np.float32)  # (H, W, 3)
     if ray_grids is None:
         grids = None
         d_cam = jnp.asarray(d_cam)
@@ -161,8 +172,9 @@ def make_device_renderer(planes, ray_grids: np.ndarray | None = None):
     return render_all
 
 
-def make_rig(n_async: int = 2) -> Rig:
-    """`n_async` async monos (yawed around the body) + forward stereo pair.
+def make_rig(n_async: int = 2, size=SIZE) -> Rig:
+    """`n_async` async monos (yawed around the body) + forward stereo pair,
+    all with the camera_k4 pinhole of `size`.
 
     n_async=2 is the compact test rig; n_async=5 reproduces the reference's
     AMV convention of 5 async cameras + 1 stereo pair = 7 images per tick
@@ -186,8 +198,9 @@ def make_rig(n_async: int = 2) -> Rig:
         # spread across the forward hemisphere + flanks (AMV-style surround)
         yaws = list(np.linspace(1.6, -1.6, n_async))
     Tbc = np.stack([cam_T(y) for y in yaws] + [cam_T(0.0)])
+    K4 = camera_k4(size)
     K = np.tile(K4, (n_async + 1, 1))
-    return Rig(Tbc=Tbc, K=K, bf=400.0 * 0.2,
+    return Rig(Tbc=Tbc, K=K, bf=K4[0] * 0.2,  # 0.2 m stereo baseline
                qc_diag=np.full(6, 1.0), n_levels=8)
 
 
@@ -248,7 +261,8 @@ def gt_pose_eight(t: float, period: float = 16.0, radius: float = 5.0):
 def run(n_frames=50, fps=10.0, seed=0, plot=None, threaded=False,
         circle=False, circle_period=16.0, circle_radius=5.0,
         n_features=800, device_render=False, eight=False, n_async=2,
-        blackout=None, collect=None, fisheye=False, pace=False):
+        blackout=None, collect=None, fisheye=False, pace=False,
+        size=SIZE):
     """`eight=True`: figure-eight course with multiple same-direction
     revisits (multi-loop closures). `n_async`: async mono count (5 = the
     AMV rig width, 7 images/tick). `blackout=(k0, n)`: frames k0..k0+n-1
@@ -263,6 +277,8 @@ def run(n_frames=50, fps=10.0, seed=0, plot=None, threaded=False,
     tracking leaves unused; without pacing an offline replay starves it
     by construction. Render/extract time beyond the frame budget counts
     against pacing like a slow sensor would.
+    `size`: (width, height) of every camera image; intrinsics scale with
+    it (camera_k4).
     `collect`: optional dict that receives per-frame states + the System."""
     if eight:
         half = max(12.0, 2.0 * circle_radius + 10.0)
@@ -283,7 +299,7 @@ def run(n_frames=50, fps=10.0, seed=0, plot=None, threaded=False,
     else:
         planes = make_world(seed)
         pose_fn = gt_pose
-    rig = make_rig(n_async)
+    rig = make_rig(n_async, size)
     C = rig.n_cams
     kb8_grid = None
     if fisheye:
@@ -291,20 +307,20 @@ def run(n_frames=50, fps=10.0, seed=0, plot=None, threaded=False,
 
         # async camera 0 becomes a KB8 fisheye: shorter focal (wider FOV)
         # + a theta-polynomial with visible distortion at the image edges
-        kb8 = np.array([300.0, 300.0, 320.0, 240.0, 0.05, -0.01, 0.002, 0.0])
+        w, h = size
+        f = 300.0 * w / 640.0
+        kb8 = np.array([f, f, w / 2.0, h / 2.0, 0.05, -0.01, 0.002, 0.0])
         rig.K[0] = kb8[:4]
         rig.cam_model = np.zeros(C, np.int32)
         rig.cam_model[0] = CAMERA_KB8
         rig.kb8_params = np.zeros((C, 8))
         rig.kb8_params[0] = kb8
-        kb8_grid = kb8_ray_grid(kb8, W, H)
+        kb8_grid = kb8_ray_grid(kb8, *size)
     ray_grids = None
     if kb8_grid is not None:
-        fx, fy, cx, cy = K4
-        u, v = np.meshgrid(np.arange(W), np.arange(H))
-        pin = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones((H, W))], -1)
+        pin = _pinhole_rays(size)
         ray_grids = np.stack([kb8_grid] + [pin] * C)  # views: C cams + right
-    renderer = (make_device_renderer(planes, ray_grids)
+    renderer = (make_device_renderer(planes, ray_grids, size)
                 if device_render else None)
     extractors = make_extractors(C + 1, n_features)
     cfg = TrackingConfig(max_frames_between_kf=5, min_local_matches=15,
@@ -342,7 +358,8 @@ def run(n_frames=50, fps=10.0, seed=0, plot=None, threaded=False,
         else:
             *imgs, img_r = [
                 render(T, planes,
-                       ray_grid=ray_grids[i] if ray_grids is not None else None)
+                       ray_grid=ray_grids[i] if ray_grids is not None else None,
+                       size=size)
                 for i, T in enumerate(frame_views(k))
             ]
         if blackout is not None and blackout[0] <= k < blackout[0] + blackout[1]:
@@ -385,7 +402,7 @@ def run(n_frames=50, fps=10.0, seed=0, plot=None, threaded=False,
     print(f"frames={n_frames} dist={dist:.1f}m kf={n_kf} mp={n_mp} loops={n_loops}")
     print(f"render  {t_render/n_frames*1e3:7.1f} ms/frame (synthetic world, "
           "not part of the pipeline)")
-    print(f"extract {t_extract/n_frames*1e3:7.1f} ms/frame (4 images)")
+    print(f"extract {t_extract/n_frames*1e3:7.1f} ms/frame ({C + 1} images)")
     tail = track_times[-10:] if len(track_times) >= 20 else track_times
     print(f"track   {t_track/n_frames*1e3:7.1f} ms/frame mean, "
           f"{np.median(track_times)*1e3:.1f} ms median, "
@@ -444,6 +461,8 @@ if __name__ == "__main__":
                     help="replay at the sensor rate (real-time pacing, as "
                          "multicam_amv does) — required for meaningful "
                          "--threaded runs")
+    ap.add_argument("--size", default="640x480",
+                    help="WxH of every camera image (960x600 = AMV rig)")
     ap.add_argument("--blackout", default=None,
                     help="K0:N — render frames K0..K0+N-1 black "
                          "(relocalization scenario)")
@@ -463,4 +482,4 @@ if __name__ == "__main__":
         n_features=args.features, threaded=args.threaded,
         device_render=args.device_render, eight=args.eight,
         n_async=args.n_async, blackout=blackout, fisheye=args.fisheye,
-        pace=args.pace)
+        pace=args.pace, size=tuple(int(x) for x in args.size.split("x")))

@@ -5,7 +5,7 @@ mbAbortBA force-stop (LocalMapping.cc:131/215, g2o setForceStopFlag via
 Optimizer.cc:79-80) and runs the post-loop global BA on a detached,
 abortable thread with staged write-back that propagates to keyframes
 created during the BA (LoopClosing.cc:811-835, 1206-1339). These tests pin
-the TPU-native counterparts:
+the device-side counterparts:
 
   * host-segmented LM (solver/lm.py LMCarry) is BIT-IDENTICAL to the
     monolithic jitted loop when no abort fires,

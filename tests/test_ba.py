@@ -111,7 +111,7 @@ def test_local_gp_ba_divergence_guard_nan():
 
 
 def test_gather_tables_match_segment_sum_fallback():
-    """The landmark-major gather assembly (TPU fast path) must produce the
+    """The landmark-major gather assembly (table-driven path) must produce the
     same (Hpp, bp, Wt, Hll, bl) as the segment-sum fallback."""
     data, state0, gt = small_problem(seed=5)
     assert data.lm_blk is not None
@@ -130,7 +130,7 @@ def test_gather_tables_match_segment_sum_fallback():
 
 
 def test_ba_f32_stability():
-    """The BA pipeline runs in float32 (TPU production dtype) without NaNs
+    """The BA pipeline runs in float32 (the on-device production dtype) without NaNs
     and still reduces chi2 by >10x."""
     data, state0, gt = small_problem(noise_px=0.2, seed=4, dtype=jnp.float32)
     problem = make_ba_problem(data, data.mg_valid, data.sg_valid, data.st_valid)
@@ -187,8 +187,7 @@ def test_pcg_single_solve_matches_dense_solve():
 def test_pcg_schur_jacobi_precond_matches_dense_solve():
     """The optional SCHUR_JACOBI preconditioner (block diagonal of S itself)
     must not change the solution — only the CG iteration count. Kept as a
-    tested option; plain block-Jacobi is the default (measured faster
-    end-to-end on chip at 2000 KF / 10k pts)."""
+    tested option; plain block-Jacobi is the default."""
     from amcslam_tpu.solver.ba import make_ba_problem_pcg
 
     data, state0, gt = small_problem(noise_px=0.3, seed=7)

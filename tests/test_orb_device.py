@@ -1,4 +1,4 @@
-"""On-device ORB extraction (frontend/orb_tpu.py) vs the NumPy oracle.
+"""On-device ORB extraction (frontend/orb_device.py) vs the NumPy oracle.
 
 Small image / few levels to keep the compile tractable in the suite; the
 semantics checked are the ones shared with frontend/orb.py: FAST corners,
@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 
 from amcslam_tpu.frontend.orb import OrbPipeline
-from amcslam_tpu.frontend.orb_tpu import ORBExtractorTPU
+from amcslam_tpu.frontend.orb_device import ORBExtractorDevice
 
 
 def _structured_image(rng, H, W):
@@ -22,7 +22,7 @@ def _structured_image(rng, H, W):
 
 
 @pytest.mark.slow
-def test_orb_tpu_matches_numpy_semantics():
+def test_orb_device_matches_numpy_semantics():
     rng = np.random.RandomState(0)
     H, W = 160, 200
     img = _structured_image(rng, H, W)
@@ -31,7 +31,7 @@ def test_orb_tpu_matches_numpy_semantics():
     xy_r, oc_r, de_r, an_r = ref.extract(img, force_python=True)
     assert len(xy_r) > 50
 
-    ext = ORBExtractorTPU(n_features=200, n_levels=3)
+    ext = ORBExtractorDevice(n_features=200, n_levels=3)
     xy_t, oc_t, de_t, an_t = ext.extract(img)
     assert len(xy_t) > 50
 
@@ -57,8 +57,8 @@ def test_orb_tpu_matches_numpy_semantics():
 
 
 @pytest.mark.slow
-def test_build_frame_tpu_backend_single_dispatch():
-    """make_extractors(backend='tpu') + build_frame: the whole rig extracts
+def test_build_frame_device_backend_single_dispatch():
+    """make_extractors(backend='device') + build_frame: the whole rig extracts
     through the batched on-device path (one extract_batch call) and yields a
     Frame with populated per-camera features and stereo depth."""
     from amcslam_tpu.frontend.features import build_frame, make_extractors
@@ -73,7 +73,7 @@ def test_build_frame_tpu_backend_single_dispatch():
     K = np.array([100.0, 100.0, W / 2, H / 2])
     rig = Rig(Tbc=np.stack([np.eye(4)] * 3), K=np.stack([K] * 3), bf=40.0)
 
-    exts = make_extractors(3, n_features=150, backend="tpu", n_levels=2)
+    exts = make_extractors(3, n_features=150, backend="device", n_levels=2)
     calls = {"n": 0}
     orig = exts[-1].extract_batch
 
